@@ -1,4 +1,4 @@
-"""Microbench: cfg2 (720p hqdn3d+unsharp) decomposition on TPU.
+"""Microbench: cfg2 (720p hqdn3d+unsharp) decomposition on the device.
 
 Times each filter alone vs the full chain with the checksum-chain
 method (bench.py).  Usage: python benches/micro_cfg2.py

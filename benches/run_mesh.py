@@ -4,8 +4,8 @@
 
 On the 8-device virtual CPU mesh this validates that all
 factorizations execute AND emit bit-identical output (the exact
-integer zoom makes partial-sum order irrelevant); on real multi-chip
-TPU hardware the same script produces the scaling table
+integer zoom makes partial-sum order irrelevant); on real multi-card
+hardware the same script produces the scaling table
 (VERDICT r3 item 4).  Also quantifies what a mesh gives up on CPU
 hosts by disabling the native hqdn3d host stage: the single-device
 host-stage fps vs the jitted-path fps.

@@ -1,7 +1,7 @@
 // MPEG-2 picture-level entropy coder (ISO/IEC 13818-2 syntax writer).
 //
 // Role analogue: the bitstream half of an export-side video encoder
-// (the reference shipped encode via external libs; tcforge's TPU
+// (the reference shipped encode via external libs; tcforge's device
 // design splits encoding into device math — motion estimation, DCT,
 // quantization, reconstruction in JAX — and this serial VLC stage).
 //

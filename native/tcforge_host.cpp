@@ -1,6 +1,6 @@
 // tcforge_host.cpp — native host-side I/O core for tcforge_tpu.
 //
-// TPU-native analogue of the reference's C container/runtime layer
+// Native analogue of the reference's C container/runtime layer
 // (avilib/, Y4M handling, and the aclib byte-shuffling that feeds the
 // pipeline): batched Y4M stream reading/writing, AVI movi scanning, and
 // packed<->planar pixel shuffles, all operating on caller-provided
@@ -251,10 +251,18 @@ void tc_shuffle_channels(const uint8_t *src, uint8_t *dst, long pixels,
 // integer LUT IIR passes — horizontal, vertical, temporal — fused into
 // one sweep per frame.  Bit-identical to the jax lax.scan formulation
 // in modules/filters/hqdn3d.py (same int32 arithmetic, same LUTs); this
-// is the single-core CPU fast path (the TPU fast path is Pallas).
+// is the single-core CPU fast path (the GPU path is the Triton scans).
 //
 // LowPassMul: curr + coef[(prev - curr + 0x10007FF) >> 12]; the bias
-// keeps the index in [0, 8192) so the shift never sees a negative.
+// keeps the index non-negative.  The temporal pass can reach 8192
+// (FrameAnt at 0xFFFF over a pixel at or just below 0): that index is
+// clamped to 8191, whose coefficient is 0 like the curve's own value
+// there (simil clamps to 0 beyond |i| = 4080).
+
+static inline int32_t hq_tidx(int32_t diff) {
+    int32_t i = (diff + 0x10007FF) >> 12;
+    return i < 8191 ? i : 8191;
+}
 
 void tc_hqdn3d_plane(const uint8_t *src, long n, long h, long w,
                      const int32_t *sp, const int32_t *tp,
@@ -324,6 +332,7 @@ void tc_hqdn3d_plane(const uint8_t *src, long n, long h, long w,
                 const __m512i kB = _mm512_set1_epi32(0x1000007F);
                 const __m512i kC = _mm512_set1_epi32(0x10007FFF);
                 const __m512i kM = _mm512_set1_epi32(0xFFFF);
+                const __m512i kTop = _mm512_set1_epi32(8191);
                 for (; x + 16 <= w; x += 16) {
                     __m512i v;
                     if (y == 0) {
@@ -341,9 +350,9 @@ void tc_hqdn3d_plane(const uint8_t *src, long n, long h, long w,
                     _mm512_storeu_si512(rowprev + x, v);
                     __m512i prev = _mm512_slli_epi32(
                         _mm512_loadu_si512(antr + x), 8);
-                    __m512i idx2 = _mm512_srai_epi32(
+                    __m512i idx2 = _mm512_min_epi32(_mm512_srai_epi32(
                         _mm512_add_epi32(
-                            _mm512_sub_epi32(prev, v), kA), 12);
+                            _mm512_sub_epi32(prev, v), kA), 12), kTop);
                     __m512i dst = _mm512_add_epi32(
                         v, _mm512_i32gather_epi32(idx2, tp, 4));
                     __m512i antv = _mm512_and_si512(
@@ -362,7 +371,7 @@ void tc_hqdn3d_plane(const uint8_t *src, long n, long h, long w,
                         int32_t v = hrow[x];
                         rowprev[x] = v;
                         int32_t prev = antr[x] << 8;
-                        int32_t dst = v + tp[(prev - v + 0x10007FF) >> 12];
+                        int32_t dst = v + tp[hq_tidx(prev - v)];
                         antr[x] = ((dst + 0x1000007F) >> 8) & 0xFFFF;
                         orow[x] = (uint8_t)(((dst + 0x10007FFF) >> 16)
                                             & 0xFF);
@@ -374,7 +383,7 @@ void tc_hqdn3d_plane(const uint8_t *src, long n, long h, long w,
                             c + sp[(rowprev[x] - c + 0x10007FF) >> 12];
                         rowprev[x] = v;
                         int32_t prev = antr[x] << 8;
-                        int32_t dst = v + tp[(prev - v + 0x10007FF) >> 12];
+                        int32_t dst = v + tp[hq_tidx(prev - v)];
                         antr[x] = ((dst + 0x1000007F) >> 8) & 0xFFFF;
                         orow[x] = (uint8_t)(((dst + 0x10007FFF) >> 16)
                                             & 0xFF);
@@ -1042,7 +1051,7 @@ void tc_me16_refine(const uint8_t* ref, const uint8_t* cur,
 // (incl. 13818-2 mismatch control / 11172-2 oddification) + in-loop
 // IDCT recon, all in double precision with round-half-even — the
 // same numerics as the float64 numpy reference and the native
-// decoder IDCT (the jax path keeps float32 for the TPU).  levels
+// decoder IDCT (the jax path keeps float32 on the device).  levels
 // come out in NATURAL 8x8 order; zigzag happens host-side.
 
 #if defined(__AVX512F__)

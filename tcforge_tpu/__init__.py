@@ -1,4 +1,4 @@
-"""tcforge_tpu — a TPU-native stream-processing framework.
+"""tcforge_tpu — an accelerator-native stream-processing framework.
 
 A from-scratch rebuild of the capabilities of the classic ``transcode``
 ("tcforge") video/audio pipeline (reference: /root/reference) as an

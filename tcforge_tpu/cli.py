@@ -44,7 +44,7 @@ def _parse_pair(text: str, sep: str = "x"):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge",
-        description="TPU-native stream processing (transcode rebuild)")
+        description="accelerator-native stream processing (transcode rebuild)")
     p.add_argument("-v", "--version", action="version",
                    version=f"tcforge_tpu {__version__}")
     # files
@@ -570,6 +570,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
 
     import tcforge_tpu.modules  # registers built-ins
+    from tcforge_tpu import backend
+    backend.init_compile_cache()
 
     if args.list_filters:
         from tcforge_tpu.modules.registry import list_modules

@@ -1,6 +1,6 @@
 """Codec and container-format identifier tables.
 
-TPU-native analogue of ``libtc/tccodecs.h`` (72 TC_CODEC_* ids),
+JAX-native analogue of ``libtc/tccodecs.h`` (72 TC_CODEC_* ids),
 ``libtc/tcformats.h`` (37 TC_FORMAT_* ids) and the name/fourcc/description
 lookups in ``libtc/mediainfo.h:46-207``.  The numeric values follow the
 reference so that probe output and AVI fourcc handling interoperate.

@@ -1,6 +1,6 @@
 """Batched frame containers — the central data structures of the framework.
 
-TPU-native analogue of the reference frame types (``tccore/frame.h``):
+JAX-native analogue of the reference frame types (``tccore/frame.h``):
 
 - reference ``TCFrameVideo`` = one malloc'd packed byte buffer + metadata,
   pushed one at a time through a pthread ring (``src/framebuffer.c``);

@@ -200,7 +200,7 @@ class Job:
     socket_path: Optional[str] = None         # --socket
     export_profiles: str = ""                 # --export_prof
 
-    # --- pipeline tuning (TPU replacements for ring-buffer knobs) -----------
+    # --- pipeline tuning (device replacements for ring-buffer knobs) -----------
     batch_size: int = 16                      # frames per device batch (-u analogue)
     prefetch_depth: int = 2                   # host->device double buffering
     max_frames: Optional[int] = None

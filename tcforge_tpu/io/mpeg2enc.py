@@ -1,12 +1,12 @@
 """Full MPEG-2 video encoder: I/P/B pictures with motion estimation.
 
-TPU-first architecture: all per-pixel math — exhaustive-search motion
-estimation, DCT, quantization, the in-loop decoder reconstruction —
-runs as batched jax ops (MXU GEMMs for the transforms, vectorized SAD
+Device-first architecture: all per-pixel math — exhaustive-search
+motion estimation, DCT, quantization, the in-loop decoder
+reconstruction — runs as batched jax ops (GEMMs for the transforms, vectorized SAD
 maps for the hierarchical search); the serial bitstream stage is the native C++
 syntax writer (native/mpeg2encode.cpp).  The reference shipped
 encoding through external libs (encode/encode_lavc.c etc.); this is
-the in-tree equivalent with the split the TPU wants.
+the in-tree equivalent with the split an accelerator wants.
 
 Scope: 4:2:0 frame pictures OR field pictures (``fields=True``: two
 field pictures per frame, 16x16 field prediction with same-parity
@@ -74,10 +74,10 @@ _DCT_KRON = None
 
 def _dct_kron():
     """kron(B, B) as numpy (cached); the 2D (I)DCT of every 8x8
-    block becomes ONE (nblocks, 64) @ (64, 64) matmul — the MXU can
+    block becomes ONE (nblocks, 64) @ (64, 64) matmul — matrix units
     tile that, unlike batched 8x8 matmuls.  HIGHEST precision keeps
-    true f32 products (default TPU matmul rounds operands to bf16 —
-    beyond tolerance for coefficient magnitudes)."""
+    true f32 products (default precision may round operands to bf16
+    or TF32 — beyond tolerance for coefficient magnitudes)."""
     global _DCT_KRON
     if _DCT_KRON is None:
         # pure numpy (a jnp basis built inside a trace would cache a
@@ -185,7 +185,7 @@ def _exhaustive_search(ref: jnp.ndarray, cur: jnp.ndarray, r: int,
     mbh, mbw = h // mb, w // mb
 
     if _use_shift_mc():
-        # lax.map serializes on TPU: one step per displacement
+        # lax.map runs one step per displacement
         return _exhaustive_search_vec(ref, cur, r, mb)
     pad = jnp.pad(ref, r, mode="edge")
     disps = jnp.stack(jnp.meshgrid(jnp.arange(-r, r + 1),
@@ -219,10 +219,9 @@ def _exhaustive_search_vec(ref: jnp.ndarray, cur: jnp.ndarray,
                            ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """_exhaustive_search with the displacement sweep VECTORIZED:
     a (2r+1, 2r+1, h, w) stack of static slices of the padded plane
-    replaces lax.map's sequential dynamic-slice loop (XLA:TPU runs
-    lax.map one step at a time — 289 latency-bound steps measured
-    12 ms/picture at the cfg6 coarse level; this runs in one fused
-    elementwise+reduce pass).  Bit-identical SADs, displacement
+    replaces lax.map's sequential dynamic-slice loop (289
+    latency-bound steps at the cfg6 coarse level; this runs in one
+    fused elementwise+reduce pass).  Bit-identical SADs, displacement
     order and argmin tie-breaks."""
     h, w = ref.shape
     mbh, mbw = h // mb, w // mb
@@ -250,7 +249,7 @@ def _exhaustive_search_vec(ref: jnp.ndarray, cur: jnp.ndarray,
     sads = sads.reshape(-1, mbh, mbw)           # dy-major like disps
     best = jnp.argmin(sads, axis=0)
     # disps[best] arithmetically — a per-MB gather into the
-    # displacement table is another TPU serializer
+    # displacement table would be another gather
     mv = jnp.stack([best // (2 * r + 1) - r,
                     best % (2 * r + 1) - r], axis=-1)
     return mv.astype(jnp.int32), jnp.min(sads, axis=0)
@@ -402,10 +401,9 @@ def motion_search(ref: jnp.ndarray, cur: jnp.ndarray,
     # coarse level: 2x2 box-filtered half resolution, 8x8 blocks on
     # the same MB grid, half the range (rounded up)
     def dec2(p):
-        # TPU formulation notes: 0::2 strided loads measured 8.8 ms
-        # per picture; reshaping the minor axis to (w//2, 2) is even
-        # worse (2-wide lane dim relayout).  Row pairs via a reshape
-        # that KEEPS w minor; column pairs via an exact 0/1 matmul
+        # Row pairs via a reshape that KEEPS w minor (0::2 strided
+        # loads and a (w//2, 2) minor axis both relayout); column
+        # pairs via an exact 0/1 matmul
         # (values < 2^24 are exact at HIGHEST precision).
         hh, ww = p.shape
         rows = p.astype(jnp.float32).reshape(hh // 2, 2, ww).sum(
@@ -446,18 +444,17 @@ def motion_search(ref: jnp.ndarray, cur: jnp.ndarray,
     return mv, jnp.min(sads, axis=0)
 
 
-_FORCE_SHIFT_MC = False      # tests flip this to cover the TPU path
+_FORCE_SHIFT_MC = False      # tests flip this to cover the shift path
 
 
 def _use_shift_mc() -> bool:
-    """XLA:TPU serializes per-pixel 2D gathers; the static-shift
-    select core (io/mpeg2codec.shift_sel_mc, bit-identical) is the
-    TPU path.  On CPU the gather lowers to a fast loop and the
-    33-way enumeration would lose."""
+    """Per-pixel 2D gather, or the static-shift select core
+    (io/mpeg2codec.shift_sel_mc, bit-identical): chosen per backend in
+    tcforge_tpu/backend.py."""
     if _FORCE_SHIFT_MC:
         return True
-    import jax as _jax
-    return _jax.default_backend() == "tpu"
+    from tcforge_tpu import backend
+    return backend.path("mpeg2_mc") == "shift"
 
 
 def _mc_pred(ref: jnp.ndarray, mv: jnp.ndarray, mb: int,
@@ -485,7 +482,8 @@ def _mc_pred_half(ref: jnp.ndarray, mv_half: jnp.ndarray,
     bilinear average of the 1/2/4 neighbours), matching the decoder's
     _half_pel_pred exactly.  ``mb`` is the per-plane MB tile: an int
     (square) or (rows, cols) — 4:2:2 chroma MBs are 16x8.  r_max > 0
-    routes to the gather-free shift-select core on TPU."""
+    routes to the gather-free shift-select core where the backend
+    table picks it."""
     mby, mbx = (mb, mb) if isinstance(mb, int) else mb
     if r_max and _use_shift_mc():
         from tcforge_tpu.io.mpeg2codec import shift_sel_mc
@@ -564,10 +562,9 @@ def _zz_flat(levels: jnp.ndarray, alt: bool = False) -> jnp.ndarray:
     """(bh,bw,8,8) int32 -> (bh,bw,64) scan-ordered int16."""
     scan = _ZZ_ALT if alt else _ZZ
     if _use_shift_mc():
-        # static 64-permutation as a one-hot matmul: the [..., scan]
-        # gather serializes on TPU like every other gather.  HIGHEST
-        # precision keeps the int16-range values exact (default TPU
-        # matmul rounds operands to bf16).
+        # static 64-permutation as a one-hot matmul instead of the
+        # [..., scan] gather.  HIGHEST precision keeps the int16-range
+        # values exact (default precision may round operands).
         key = (bool(alt),)
         P = _ZZ_PERM.get(key)
         if P is None:
@@ -622,15 +619,15 @@ def _intra_math_jax(y, u, v, qs, alt=False, m1=False):
 
 # --------------------------------------------------------------------- #
 # native CPU block pipeline (double-precision DCT; the jax path keeps
-# float32 for the MXU).  Divergence note: the two paths emit slightly
+# float32 on the device).  Divergence note: the two paths emit slightly
 # different — equally spec-valid — levels; each is consistent with its
 # own in-loop reconstruction, and the native numerics match the f64
 # numpy reference and the native decoder IDCT exactly.
 
 
 def _native_blocks():
-    import jax as _jax
-    if _jax.default_backend() != "cpu":
+    from tcforge_tpu import backend
+    if backend.path("mpeg2_blocks") != "native":
         return None
     from tcforge_tpu import native as _native
     return _native if _native.enc_blocks_available() else None
@@ -963,9 +960,9 @@ def halfpel_refine(ref: jnp.ndarray, cur: jnp.ndarray,
 def _native_me(ref, cur, r):
     """Native C++ ME on the CPU backend (bit-exact to motion_search +
     halfpel_refine; ~3.5 ms vs ~30 ms in XLA:CPU at SD), None when
-    unavailable or on TPU."""
-    import jax as _jax
-    if _jax.default_backend() != "cpu":
+    unavailable or not the backend's path."""
+    from tcforge_tpu import backend
+    if backend.path("mpeg2_blocks") != "native":
         return None
     from tcforge_tpu import native as _native
     if not _native.me16_available():
@@ -992,7 +989,7 @@ def _p_inter_math(y, u, v, refs, qs, r, alt=False, m1=False):
 def _p_inter_tail(y, u, v, refs, qs, mvh, sad, alt=False, m1=False,
                   r_max=0):
     """Post-ME inter half (also entered directly with native ME
-    results).  r_max > 0 enables the shift-select MC on TPU (the ME
+    results).  r_max > 0 enables the shift-select MC (the ME
     bounds the vectors by construction)."""
     ry, ru, rv = refs
     mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
@@ -1595,7 +1592,7 @@ class Mpeg2FullEncoder:
         if _native_blocks() is not None:
             # CPU hosts run the native block path, which is numpy
             # end-to-end: a per-plane device round-trip here is pure
-            # cost (measured ~3.5 ms/frame through device_put)
+            # cost
             yj, uj, vj = np.asarray(y), np.asarray(u), np.asarray(v)
         else:
             yj, uj, vj = jnp.asarray(y), jnp.asarray(u), jnp.asarray(v)
@@ -1648,12 +1645,11 @@ class Mpeg2FullEncoder:
 
 
 # --------------------------------------------------------------------- #
-# Coefficient-major ("slab") block pipeline — the TPU formulation.
+# Coefficient-major ("slab") block pipeline.
 #
-# The (h, w) -> (bh, bw, 8, 8) block relayout costs ~1.6 ms/picture at
-# 704x480 on TPU (a minor-dim-8 transpose lowers to per-element
-# shuffles) and measured as the ENTIRE cost of the fused intra math.
-# Instead the layout change rides the DCT matmul itself: one matrix
+# The (h, w) -> (bh, bw, 8, 8) block relayout is a minor-dim-8
+# transpose.  Instead the layout change rides the DCT matmul itself:
+# one matrix
 # that is a permutation composed with a block-diagonal basis maps a
 # pixel plane straight to COEFFICIENT-MAJOR layout
 #

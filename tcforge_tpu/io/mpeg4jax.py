@@ -10,7 +10,7 @@ pictures with the two anchor references as carry (B pictures emit
 their own recon, anchors emit the carried previous anchor — display
 order falls out of the scan, exactly the make_gop_step scheme).
 
-TPU formulation notes (all lessons carried over from cfg8/cfg9):
+Formulation notes (carried over from cfg8/cfg9):
 - MC is the gather-free shift-select form (mpeg2codec.shift_sel_mc)
   at 8x8-block granularity — MPEG-4 4MV gives each luma block its own
   vector, so the shift maps are (2*mbh, 2*mbw); 1MV replicates.  The
@@ -25,7 +25,7 @@ TPU formulation notes (all lessons carried over from cfg8/cfg9):
   no coded mask is needed: out = clip(pred + idct(blocks)).
 
 Reference parity: import/import_ffmpeg.c + import_xvid.c:1-150 decode
-via libavcodec/libxvidcore; this is the TPU-resident equivalent.
+via libavcodec/libxvidcore; this is the device-resident equivalent.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def _i16_jax(x):
 def xvid_idct_jax(blocks):
     """(n, 8, 8) int32 coefficients -> (n, 8, 8) int32 samples in
     int16 range.  Row/column passes unrolled statically; every
-    operation is elementwise over the block batch (VPU work)."""
+    operation is elementwise over the block batch."""
     b = blocks.astype(jnp.int32)
     rows = [None] * 8
     for r in range(8):

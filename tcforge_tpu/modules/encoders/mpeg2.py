@@ -33,7 +33,7 @@ class Mpeg2VideoEncoder(Encoder):
                       codecs_in=(Codec.YUV420P, Codec.YUV422P),
                       codecs_out=(Codec.MPEG2VIDEO,))
     desc = ModuleDesc(
-        name="mpeg2", comment="MPEG-2 video encoder (I/P/B + TPU "
+        name="mpeg2", comment="MPEG-2 video encoder (I/P/B + device "
         "motion estimation; intra-only with gop_n=1)",
         params=[ParamSpec("qscale", "quantizer scale", "d", 8, 1, 31),
                 ParamSpec("bitrate", "nominal bitrate kbps", "d", 8000,

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tcforge_tpu import backend
 from tcforge_tpu.core.formats import ImageFormat
 from tcforge_tpu.core.frame import FrameBatch
 from tcforge_tpu.core.optstr import ModuleDesc, ParamSpec
@@ -111,20 +112,6 @@ class Denoise3dFilter(VideoFilter):
             precalc_coefs(self.options["chroma_strength"]))
         if self.options["pre"]:
             self.slots = FilterSlot.PRE_M
-        # bit-exactness corrections for the Pallas curve, probed
-        # eagerly (apply() is traced; see hqdn3d)
-        self._corr = None
-        if self._use_pallas():
-            from tcforge_tpu.ops.kernels import lut_correction
-            try:
-                self._corr = {
-                    s: lut_correction(s, mode="d3")
-                    for s in {self.options["luma"],
-                              self.options["luma_strength"],
-                              self.options["chroma"],
-                              self.options["chroma_strength"]}}
-            except ValueError:
-                self._corr = None
 
     def init_state(self, width: int, height: int, fmt: ImageFormat) -> Any:
         # the reference zero-initializes `previous` (tc_zalloc,
@@ -140,19 +127,12 @@ class Denoise3dFilter(VideoFilter):
                 "u": jnp.zeros((uh, uw), jnp.int32),
                 "v": jnp.zeros((uh, uw), jnp.int32)}
 
-    def _use_pallas(self) -> bool:
-        """Pallas wide-block scans are the TPU fast path (closed-form
-        coefficients, ±1 of the f64 LUT — same contract as hqdn3d's
-        fast mode); the lax.scan LUT path serves CPU/tests."""
-        return jax.default_backend() == "tpu" \
-            and not self.options.get("exact")
-
     def host_stage(self) -> bool:
         """Native fused CPU sweep (see hqdn3d.host_stage — identical
         rationale); RGB batches stay on the scan path."""
         if self.options.get("nonative"):
             return False
-        if jax.default_backend() != "cpu":
+        if backend.path("denoise_scan") != "native":
             return False
         from tcforge_tpu import native
         return native.denoise3d_available()
@@ -190,55 +170,28 @@ class Denoise3dFilter(VideoFilter):
                               v=jnp.asarray(v)), new_state
 
     def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
+        if backend.path("denoise_scan") == "triton":
+            from tcforge_tpu.ops.kernels import denoise3d_plane as plane
+        else:
+            def plane(frames, prev, c_s, c_t):
+                return denoise_plane(frames, prev, c_s, c_s, c_t)
+
         if fb.rgb is not None:
             # every RGB channel filtered with luma tables
             chans = []
             carries = []
             for ci in range(3):
-                plane = fb.rgb[..., ci]
-                out, carry = denoise_plane(
-                    plane, state["rgb"][..., ci],
-                    self._c_lum_s, self._c_lum_s, self._c_lum_t)
+                out, carry = plane(fb.rgb[..., ci], state["rgb"][..., ci],
+                                   self._c_lum_s, self._c_lum_t)
                 chans.append(out)
                 carries.append(carry)
             new_state = {"rgb": jnp.stack(carries, axis=-1)}
             return fb.with_planes(rgb=jnp.stack(chans, axis=-1)), new_state
 
-        if self._use_pallas():
-            from tcforge_tpu.ops.kernels import denoise3d_plane_pallas
-            ls = self.options["luma"]
-            lt = self.options["luma_strength"]
-            cs = self.options["chroma"]
-            ct = self.options["chroma_strength"]
-            # bit-exactness corrections vs the f64 LUT, probed in
-            # __init__ (see hqdn3d); None -> fall back to the LUT scan
-            corr = self._corr
-            if corr is None:
-                y, ant_y = denoise_plane(fb.y, state["y"],
-                                         self._c_lum_s,
-                                         self._c_lum_s,
-                                         self._c_lum_t)
-                u, ant_u = denoise_plane(fb.u, state["u"],
-                                         self._c_chrom_s,
-                                         self._c_chrom_s,
-                                         self._c_chrom_t)
-                v, ant_v = denoise_plane(fb.v, state["v"],
-                                         self._c_chrom_s,
-                                         self._c_chrom_s,
-                                         self._c_chrom_t)
-            else:
-                y, ant_y = denoise3d_plane_pallas(
-                    fb.y, state["y"], ls, lt, corr[ls], corr[lt])
-                u, ant_u = denoise3d_plane_pallas(
-                    fb.u, state["u"], cs, ct, corr[cs], corr[ct])
-                v, ant_v = denoise3d_plane_pallas(
-                    fb.v, state["v"], cs, ct, corr[cs], corr[ct])
-        else:
-            y, ant_y = denoise_plane(fb.y, state["y"], self._c_lum_s,
-                                     self._c_lum_s, self._c_lum_t)
-            u, ant_u = denoise_plane(fb.u, state["u"], self._c_chrom_s,
-                                     self._c_chrom_s, self._c_chrom_t)
-            v, ant_v = denoise_plane(fb.v, state["v"], self._c_chrom_s,
-                                     self._c_chrom_s, self._c_chrom_t)
+        y, ant_y = plane(fb.y, state["y"], self._c_lum_s, self._c_lum_t)
+        u, ant_u = plane(fb.u, state["u"], self._c_chrom_s,
+                         self._c_chrom_t)
+        v, ant_v = plane(fb.v, state["v"], self._c_chrom_s,
+                         self._c_chrom_t)
         new_state = {"y": ant_y, "u": ant_u, "v": ant_v}
         return fb.with_planes(y=y, u=u, v=v), new_state

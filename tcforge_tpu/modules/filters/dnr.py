@@ -69,7 +69,7 @@ class DnrFilter(VideoFilter):
 
     def init_state(self, width: int, height: int, fmt: ImageFormat) -> Any:
         if fmt != ImageFormat.YUV420P:
-            raise ValueError("dnr (TPU build) supports YUV420P")
+            raise ValueError("dnr (this build) supports YUV420P")
         return {"init": jnp.zeros((), jnp.bool_),
                 "y": jnp.zeros((height, width), jnp.int32),
                 "u": jnp.zeros((height // 2, width // 2), jnp.int32),

@@ -5,7 +5,7 @@ bitmaps + control sequences, io/spu.py replacing subproc.c) demuxed
 from a program stream's private stream 1 (or a raw concatenated .spu
 file) and blends them onto frames at their PTS-derived display times.
 
-TPU design: all subpicture units decode at init into a static layer
+Device design: all subpicture units decode at init into a static layer
 list; visibility becomes per-frame gathered flags and the blend is one
 masked where per layer inside jit (positions are fixed per unit, so
 compositing needs no dynamic slices at all — each layer writes a

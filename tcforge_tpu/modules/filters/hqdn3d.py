@@ -6,7 +6,7 @@ cascaded nonlinear IIR low-passes — horizontal (along x), vertical
 the local difference through a precalculated similarity curve
 (``PrecalcCoefs``, filter_hqdn3d.c:120-133).
 
-TPU-native decomposition (exact, same integer math):
+Vectorized decomposition (exact, same integer math):
 
 - the reference's single triple-nested pixel loop separates into
   three passes, each a `lax.scan` over ONE axis with the other axes
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tcforge_tpu import backend
 from tcforge_tpu.core.formats import ImageFormat
 from tcforge_tpu.core.frame import FrameBatch
 from tcforge_tpu.core.optstr import ModuleDesc, ParamSpec
@@ -55,31 +56,15 @@ def precalc_coefs(dist25: float) -> np.ndarray:
     return out.astype(np.int32)
 
 
-def coef_fn(dist25: float):
-    """Closed-form coefficient evaluation (the LUT's defining formula,
-    PrecalcCoefs) — avoids the per-element LUT gather that dominates the
-    scan on TPU.  float32 pow differs from the float64 LUT by at most a
-    few units in the <<16 domain (~1e-4 of a pixel level), far inside
-    the PSNR budget; `exact=1` switches back to the LUT."""
-    gamma = math.log(0.25) / math.log(1.0 - dist25 / 255.0 - 0.00001)
-
-    def fn(d: jnp.ndarray) -> jnp.ndarray:
-        i = (d - 4096).astype(jnp.float32)
-        simil = jnp.maximum(0.0, 1.0 - jnp.abs(i) * (1.0 / 4080.0))
-        c = jnp.power(simil, jnp.float32(gamma)) * (65536.0 / 16.0) * i
-        return jnp.where(c < 0, c - 0.5, c + 0.5).astype(jnp.int32)
-
-    return fn
-
-
-def _lpm(prev: jnp.ndarray, curr: jnp.ndarray, coef) -> jnp.ndarray:
+def _lpm(prev: jnp.ndarray, curr: jnp.ndarray,
+         coef: jnp.ndarray) -> jnp.ndarray:
     """LowPassMul: curr + Coef[(prev-curr+0x10007FF) >> 12]
-    (filter_hqdn3d.c:49-54).  `coef` is an int32 LUT array (exact mode)
-    or a callable evaluating the coefficient curve directly."""
+    (filter_hqdn3d.c:49-54), `coef` the int32 LUT.  The temporal pass
+    can index 8192 (FrameAnt 0xFFFF over a pixel at or just below 0);
+    it is clamped to 8191, whose coefficient is 0 like the curve's own
+    value there."""
     d = (prev - curr + 0x10007FF) >> 12
-    if callable(coef):
-        return curr + coef(d)
-    return curr + jnp.take(coef, d, axis=0)
+    return curr + jnp.take(coef, d, axis=0, mode="clip")
 
 
 def denoise_plane(frames: jnp.ndarray, frame_ant: jnp.ndarray,
@@ -142,8 +127,6 @@ class Hqdn3dFilter(VideoFilter):
             ParamSpec("chroma_strength", "temporal chroma strength", "f",
                       0.0, 0.0, 100.0),
             ParamSpec("pre", "run as a pre filter", "d", 0, 0, 1),
-            ParamSpec("exact", "bit-exact LUT coefficients (slower)", "d",
-                      0, 0, 1),
             ParamSpec("nonative", "disable the C++ CPU fast path", "d",
                       0, 0, 1)])
     slots = FilterSlot.POST_M
@@ -172,31 +155,8 @@ class Hqdn3dFilter(VideoFilter):
         if p4:
             chrom_tmp = p4
         self.strengths = (lum_spac, lum_tmp, chrom_spac, chrom_tmp)
-        # bit-exactness corrections for the Pallas closed-form curve,
-        # probed EAGERLY here (apply() is traced by the chain jit, so
-        # the probe cannot run there); None -> curve too far off, the
-        # materialized-LUT lax.scan path is used instead
-        self._corr = None
-        if self._use_pallas():
-            from tcforge_tpu.ops.kernels import lut_correction
-            try:
-                self._corr = {s: lut_correction(s)
-                              for s in set(self.strengths)}
-            except ValueError:
-                self._corr = None
-        # the closed-form coefficient curve avoids LUT gathers, a win
-        # on TPU; on CPU the per-step pow() dominates the scan, so the
-        # (bit-exact) LUT is both faster AND exact there
-        if self.options["exact"] or jax.default_backend() != "tpu":
-            self._c_lum_s = jnp.asarray(precalc_coefs(lum_spac))
-            self._c_lum_t = jnp.asarray(precalc_coefs(lum_tmp))
-            self._c_chrom_s = jnp.asarray(precalc_coefs(chrom_spac))
-            self._c_chrom_t = jnp.asarray(precalc_coefs(chrom_tmp))
-        else:
-            self._c_lum_s = coef_fn(lum_spac)
-            self._c_lum_t = coef_fn(lum_tmp)
-            self._c_chrom_s = coef_fn(chrom_spac)
-            self._c_chrom_t = coef_fn(chrom_tmp)
+        self._luts = tuple(jnp.asarray(precalc_coefs(x)) for x in
+                           (lum_spac, lum_tmp, chrom_spac, chrom_tmp))
         if self.options["pre"]:
             self.slots = FilterSlot.PRE_M
 
@@ -213,27 +173,18 @@ class Hqdn3dFilter(VideoFilter):
             "v": jnp.zeros((height // 2, width // 2), jnp.int32),
         }
 
-    def _use_pallas(self) -> bool:
-        """The Pallas kernels are the fast path on TPU; the lax.scan path
-        serves CPU (tests) and exact-LUT mode."""
-        if self.options["exact"]:
-            return False
-        import jax
-        return jax.default_backend() == "tpu"
-
     def host_stage(self) -> bool:
         """Fused C++ cascade: the CPU fast path (bit-identical to the
         lax.scan LUT formulation, tested so).  XLA's scan pays heavy
         per-step overhead for these one-row steps on CPU; the native
-        sweep runs the whole cascade in one pass per frame (~3.7x).
-        Runs as an EAGER chain stage (VideoChain host segmentation) —
-        host callbacks inside jit deadlock with threaded dispatch.
-        Only taken when the LUTs are materialized (exact/CPU mode)
-        and the host library is built; `nonative=1` forces the scan
-        path."""
-        if self.options.get("nonative") or callable(self._c_lum_s):
+        sweep runs the whole cascade in one pass per frame.  Runs as an
+        EAGER chain stage (VideoChain host segmentation) — host
+        callbacks inside jit deadlock with threaded dispatch.  Taken
+        where the backend table picks it and the host library is
+        built; `nonative=1` forces the scan path."""
+        if self.options.get("nonative"):
             return False
-        if jax.default_backend() != "cpu":
+        if backend.path("denoise_scan") != "native":
             return False
         from tcforge_tpu import native
         return native.hqdn3d_available()
@@ -241,11 +192,7 @@ class Hqdn3dFilter(VideoFilter):
     def apply_host(self, fb: FrameBatch, state: Any):
         """Eager native path (same semantics as apply)."""
         from tcforge_tpu import native
-        if not hasattr(self, "_np_luts"):
-            self._np_luts = tuple(np.asarray(c, np.int32) for c in
-                                  (self._c_lum_s, self._c_lum_t,
-                                   self._c_chrom_s, self._c_chrom_t))
-        ls, lt, cs, ct = self._np_luts
+        ls, lt, cs, ct = (np.asarray(c, np.int32) for c in self._luts)
         inited = bool(np.asarray(state["init"]))
 
         def run(plane_batch, ant, sp, tp):
@@ -270,43 +217,14 @@ class Hqdn3dFilter(VideoFilter):
             return jnp.where(state["init"], ant,
                              plane_batch[0].astype(jnp.int32) << 8)
 
-        if self._use_pallas():
-            from tcforge_tpu.ops.kernels import denoise_plane_pallas
-            ls, lt, cs, ct = self.strengths
-            # bit-exactness corrections probed in __init__ against
-            # this backend's own pow lowering (34-86 ±1 entries
-            # measured on TPU); None -> curve too far off, use LUT
-            corr = self._corr
-            if corr is None:
-                y, ant_y = denoise_plane(
-                    fb.y, seed(fb.y, state["y"]),
-                    jnp.asarray(precalc_coefs(ls)),
-                    jnp.asarray(precalc_coefs(lt)))
-                u, ant_u = denoise_plane(
-                    fb.u, seed(fb.u, state["u"]),
-                    jnp.asarray(precalc_coefs(cs)),
-                    jnp.asarray(precalc_coefs(ct)))
-                v, ant_v = denoise_plane(
-                    fb.v, seed(fb.v, state["v"]),
-                    jnp.asarray(precalc_coefs(cs)),
-                    jnp.asarray(precalc_coefs(ct)))
-            else:
-                y, ant_y = denoise_plane_pallas(
-                    fb.y, seed(fb.y, state["y"]), ls, lt,
-                    corr[ls], corr[lt])
-                u, ant_u = denoise_plane_pallas(
-                    fb.u, seed(fb.u, state["u"]), cs, ct,
-                    corr[cs], corr[ct])
-                v, ant_v = denoise_plane_pallas(
-                    fb.v, seed(fb.v, state["v"]), cs, ct,
-                    corr[cs], corr[ct])
+        if backend.path("denoise_scan") == "triton":
+            from tcforge_tpu.ops.kernels import hqdn3d_plane as plane
         else:
-            y, ant_y = denoise_plane(fb.y, seed(fb.y, state["y"]),
-                                     self._c_lum_s, self._c_lum_t)
-            u, ant_u = denoise_plane(fb.u, seed(fb.u, state["u"]),
-                                     self._c_chrom_s, self._c_chrom_t)
-            v, ant_v = denoise_plane(fb.v, seed(fb.v, state["v"]),
-                                     self._c_chrom_s, self._c_chrom_t)
+            plane = denoise_plane
+        ls, lt, cs, ct = self._luts
+        y, ant_y = plane(fb.y, seed(fb.y, state["y"]), ls, lt)
+        u, ant_u = plane(fb.u, seed(fb.u, state["u"]), cs, ct)
+        v, ant_v = plane(fb.v, seed(fb.v, state["v"]), cs, ct)
         new_state = {"init": jnp.ones((), jnp.bool_),
                      "y": ant_y, "u": ant_u, "v": ant_v}
         return fb.with_planes(y=y, u=u, v=v), new_state

@@ -17,7 +17,7 @@ precursor):
   transform with selectable interpolation (zero/linear/bilinear/
   quadratic/bicubic, filter_transform.c:168-341).
 
-TPU design: the per-field search — the hot loop — is one batched SAD
+Device design: the per-field search — the hot loop — is one batched SAD
 reduction per candidate shift over ALL fields at once, scanned over the
 candidate list with ``lax.scan`` (device-side argmin with the C code's
 first-wins tie-break), instead of the reference's per-field nested pixel

@@ -15,7 +15,7 @@ steer them:
                           removal (parser.c:284-540, object_list.c
                           stale-entry removal).
 
-TPU design: the playlist is compiled ONCE at init — the mutable
+Device design: the playlist is compiled ONCE at init — the mutable
 display-list state the reference recomputes per frame (positions,
 velocities, transparency ramps, kill frames) is simulated on the host
 into dense per-frame arrays, and every object's pixels render once

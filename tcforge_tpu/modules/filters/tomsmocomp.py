@@ -211,24 +211,12 @@ class TomsMoCompFilter(VideoFilter):
         strange = bool(self.options["usestrangebob"])
         n = fb.batch
 
-        # the Pallas kernel implements the default (WierdBob) tournament
-        use_pallas = jax.default_backend() == "tpu" and not strange
-
         def run_plane(window, par, luma=True):
-            if use_pallas:
-                # the hand-kernel path (ops/kernels.py): whole candidate
-                # tournament in VMEM, bit-identical to the jnp version
-                from tcforge_tpu.ops.kernels import \
-                    tomsmocomp_plane_pallas2
-                out = tomsmocomp_plane_pallas2(
-                    window[1:-1], window[:-2], window[2:], par,
-                    effort).astype(jnp.int32)
-            else:
-                prev = window[:-2].astype(jnp.int32)
-                curr = window[1:-1].astype(jnp.int32)
-                nxt = window[2:].astype(jnp.int32)
-                out = jax.vmap(lambda c, p, x: tomsmocomp_plane(
-                    c, p, x, par, effort, strange, luma))(curr, prev, nxt)
+            prev = window[:-2].astype(jnp.int32)
+            curr = window[1:-1].astype(jnp.int32)
+            nxt = window[2:].astype(jnp.int32)
+            out = jax.vmap(lambda c, p, x: tomsmocomp_plane(
+                c, p, x, par, effort, strange, luma))(curr, prev, nxt)
             if vert:
                 up = jnp.roll(out, 1, axis=-2)
                 dn = jnp.roll(out, -1, axis=-2)

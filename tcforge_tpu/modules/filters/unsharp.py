@@ -11,15 +11,21 @@ with ``amount`` in 16.16 fixed point, ``round(blur) = (acc + halfscale)
 >> scalebits``, ``scalebits = (stepsX + stepsY) * 2``
 (filter_unsharp.c:62-117).  Positive amount sharpens, negative blurs.
 
-TPU-native form: the FSM's delay lines become 2*steps vectorized
-shift-add passes per axis over the whole batch, in uint32 (matching the
-C accumulators' wraparound semantics).
+Vectorized form: the FSM's 2*steps cascaded [1,1] stages per axis sum
+the edge-replicated neighbourhood with the binomial weights C(2*steps,
+k), so each axis is one weighted sum of 2*steps+1 shifted views over
+the whole batch, in uint32 (the C accumulators wrap; a weighted sum
+wraps the same way modulo 2**32).  It is the one path on every backend:
+XLA fuses it, and on an H100 a hand-written stencil kernel made the
+hqdn3d+unsharp chain step no faster beyond run-to-run spread (PERF.md).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Tuple
 
+import jax
 import jax.numpy as jnp
 
 from tcforge_tpu.core.formats import ImageFormat
@@ -32,41 +38,39 @@ MIN_MATRIX_SIZE = 3
 MAX_MATRIX_SIZE = 63
 
 
+def _binomial_taps(a: jnp.ndarray, steps: int, axis: int) -> jnp.ndarray:
+    """sum_k C(2*steps, k) * a[i + k - steps] along ``axis``, with edge
+    replication, in uint32."""
+    n = a.shape[axis]
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (steps, steps)
+    a = jnp.pad(a, pad, mode="edge")
+    acc = None
+    for k in range(2 * steps + 1):
+        term = jax.lax.slice_in_dim(a, k, k + n, axis=axis) \
+            * jnp.uint32(math.comb(2 * steps, k) % (1 << 32))
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def _binomial_blur_acc(img: jnp.ndarray, steps_x: int,
                        steps_y: int) -> jnp.ndarray:
     """Un-normalized binomial blur accumulator in uint32 over (..., H, W):
-    pad by edge replication, then 2*steps shift-add passes per axis."""
+    the horizontal taps, then the vertical taps over their sums."""
     a = img.astype(jnp.uint32)
     if steps_x:
-        pad = [(0, 0)] * (a.ndim - 1) + [(steps_x, steps_x)]
-        a = jnp.pad(a, pad, mode="edge")
-        for _ in range(2 * steps_x):
-            a = a[..., 1:] + a[..., :-1]
+        a = _binomial_taps(a, steps_x, a.ndim - 1)
     if steps_y:
-        pad = [(0, 0)] * (a.ndim - 2) + [(steps_y, steps_y), (0, 0)]
-        a = jnp.pad(a, pad, mode="edge")
-        for _ in range(2 * steps_y):
-            a = a[..., 1:, :] + a[..., :-1, :]
+        a = _binomial_taps(a, steps_y, a.ndim - 2)
     return a
 
 
 def unsharp_plane(img: jnp.ndarray, msize_x: int, msize_y: int,
                   amount: float) -> jnp.ndarray:
-    """Apply the unsharp FSM math to a (..., H, W) uint8 plane.
-
-    On TPU backends the whole cascade + sharpen runs inside one Pallas
-    kernel (ops/kernels.py:unsharp_plane_pallas — one HBM read/write
-    instead of ten materialized passes); bit-identical because u32
-    addition commutes mod 2^32, so even the wraparound semantics
-    survive the reordered cascade."""
+    """Apply the unsharp FSM math to a (..., H, W) uint8 plane."""
     if amount == 0.0:
         return img
-    import jax
     steps_x, steps_y = msize_x // 2, msize_y // 2
-    if jax.default_backend() == "tpu" and steps_y <= 8 \
-            and img.ndim == 3:
-        from tcforge_tpu.ops.kernels import unsharp_plane_pallas
-        return unsharp_plane_pallas(img, steps_x, steps_y, amount)
     scalebits = (steps_x + steps_y) * 2
     halfscale = jnp.uint32(1 << (scalebits - 1))
     amount_fx = jnp.int32(int(amount * 65536.0))

@@ -11,7 +11,7 @@ Rebuild of ``filter/filter_yait.c`` + ``filter/yait.h``:
   drop frames ('d'), or deinterlace ('1'..'5')
   (yait_ops/yait_put_rows, filter_yait.c:520-700).
 
-TPU design: pass 1's row deltas are one masked reduction per frame in a
+Device design: pass 1's row deltas are one masked reduction per frame in a
 ``lax.scan`` with the previous frame as carry; the host log writer rides
 the engine ``collect``/``finalize`` hooks.  Pass 2's ops are static
 per-frame data, so they become numpy arrays indexed by ``frame_ids``

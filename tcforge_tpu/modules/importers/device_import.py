@@ -3,7 +3,7 @@ gated (import_v4l2.c, import_x11.c, import_vnc.c, import_alsa.c,
 import_oss.c, import_dvd.c, import_pv3.c analogues).
 
 The reference builds these only when the corresponding system API or
-library is available (``configure`` flags); on a TPU build host none
+library is available (``configure`` flags); on a build host none
 of them exist, so each module registers, probes its prerequisite, and
 reports precisely what is missing.  This keeps tcmodinfo/module
 discovery parity: the module *names* resolve, and the error text says

@@ -503,8 +503,7 @@ class MpegImporter(Importer):
         field pictures pair/weave through the generalized field
         core) with reference reordering, then vertical chroma
         decimation into the 4:2:0 pipeline core."""
-        import jax
-
+        from tcforge_tpu import backend
         from tcforge_tpu.io.mpeg2codec import (MBF_DUAL,
                                                chroma_422_to_420,
                                                decode_field_step,
@@ -522,7 +521,7 @@ class MpegImporter(Importer):
             self._pend422_field = None
             self._gop_scan422 = (getattr(self, "_force_gop_scan",
                                          False)
-                                 or jax.default_backend() == "tpu")
+                                 or backend.path("mpeg2_decode") == "gop")
             self._run422 = []
             self._spill422 = []
         ys, us, vs = [], [], []
@@ -546,7 +545,7 @@ class MpegImporter(Importer):
             vs.append(v)
 
         def flush_run422():
-            """GOP-per-dispatch 4:2:2 reconstruction (TPU): one
+            """GOP-per-dispatch 4:2:2 reconstruction: one
             lax.scan over the buffered frame-coded run."""
             if not self._run422:
                 return
@@ -663,8 +662,7 @@ class MpegImporter(Importer):
         emit immediately between their references; a new reference
         releases the previous one (decoder.c frame reordering via
         libmpeg2 in the reference)."""
-        import jax
-
+        from tcforge_tpu import backend
         from tcforge_tpu.io.mpeg2codec import (MBF_DUAL,
                                                decode_field_step,
                                                reconstruct_intra_batch_jax,
@@ -678,13 +676,14 @@ class MpegImporter(Importer):
             self._pend_field = None    # buffered first field of a frame
             self._spill = []           # decoded frames beyond a request
             self._bufs = (0, None)     # (capacity, coef batch arrays)
-            # GOP-per-dispatch reconstruction (the cfg8 path): on TPU
-            # the per-picture dispatch latency dominates, so frame-
-            # coded I/P/B runs flush through ONE lax.scan program
+            # GOP-per-dispatch reconstruction (the cfg8 path): where
+            # per-picture dispatch latency dominates, frame-coded
+            # I/P/B runs flush through ONE lax.scan program
             # (io/mpeg2codec.make_gop_step).  CPU keeps the native
-            # AVX per-picture path.  _force_gop_scan is for tests.
+            # AVX per-picture path (tcforge_tpu/backend.py).
+            # _force_gop_scan is for tests.
             self._gop_scan = (getattr(self, "_force_gop_scan", False)
-                              or jax.default_backend() == "tpu")
+                              or backend.path("mpeg2_decode") == "gop")
         # preallocated coefficient batch: the native bitstream decoder
         # writes each picture straight into its slice (no re-stacking)
         if self._bufs[0] < n:

@@ -1,6 +1,6 @@
 """PCM audio ops: the libtcaudio layer.
 
-TPU-native rebuild of ``libtcaudio/tcaudio.c`` (tca_convert_from/to,
+JAX-native rebuild of ``libtcaudio/tcaudio.c`` (tca_convert_from/to,
 tca_amplify, tca_mono_to_stereo, tca_stereo_to_mono) as batched jnp
 functions over (..., S, C) sample tensors.  Internal canonical sample
 format is int16 (TCA_S16LE analogue); u8/big-endian byte orders are
@@ -88,7 +88,7 @@ def resample_linear(pcm: Array, src_rate: int, dst_rate: int) -> Array:
 # from lavc's polyphase resampler, filter/filter_resample.c:272) —
 # expressed as a dense contributor-matrix GEMM like libtcvideo's zoom
 # resampler (libtcvideo/zoom.c contributor lists), which is the shape
-# the MXU wants.
+# matrix units want.
 
 _RESAMPLE_CACHE = {}
 

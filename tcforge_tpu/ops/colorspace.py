@@ -1,6 +1,6 @@
 """Colorspace / pixel-format conversion — the imgconvert registry.
 
-TPU-native rebuild of ``aclib/imgconvert.c`` + ``img_yuv_rgb.c`` +
+JAX-native rebuild of ``aclib/imgconvert.c`` + ``img_yuv_rgb.c`` +
 ``img_yuv_planar.c`` + ``img_rgb_packed.c``: a ``(src_fmt, dst_fmt)``
 dispatch table of conversion functions (``imgconvert.c:23-104``), here
 over batched planar tensors, jit-compatible and exactly matching the

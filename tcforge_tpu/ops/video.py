@@ -1,6 +1,6 @@
 """Frame-geometry and pixel ops: the libtcvideo layer.
 
-TPU-native rebuild of ``libtcvideo/tcvideo.c`` (tcv_clip, tcv_deinterlace,
+JAX-native rebuild of ``libtcvideo/tcvideo.c`` (tcv_clip, tcv_deinterlace,
 tcv_resize, tcv_reduce, tcv_flip_v/h, tcv_gamma_correct, tcv_antialias)
 as pure batched jnp functions over (..., H, W) planes (or (..., H, W, C)
 for RGB — the channel axis rides along untouched).

@@ -1,11 +1,10 @@
-"""Filtered arbitrary-size resampling (tcv_zoom / -Z) as MXU matmuls.
+"""Filtered arbitrary-size resampling (tcv_zoom / -Z) as matmuls.
 
-TPU-native rebuild of ``libtcvideo/zoom.c`` (Schumacher "Filtered Image
+Rebuild of ``libtcvideo/zoom.c`` (Schumacher "Filtered Image
 Rescaling").  The reference walks per-pixel contributor lists with 16.16
 fixed-point weights; contributor lists are *separable* (one per output
 column and one per output row), so here they become two dense weight
-matrices and the whole resize is two batched matrix multiplications —
-exactly the shape the TPU MXU wants:
+matrices and the whole resize is two batched matrix multiplications:
 
     tmp  = img  @ Wx^T        (N, H, W) x (W, new_W)
     out  = Wy   @ tmp         (new_H, H) x (N, H, new_W)
@@ -15,17 +14,12 @@ Numerics: weights are quantized to 16.16 fixed point exactly like
 and floor-shifts (``zoom_process``, ``zoom.c:602-651``), and the
 horizontal pass result is quantized to uint8 *before* the vertical pass,
 matching the reference's tmpimage intermediate.  The DEFAULT path is
-BIT-EXACT to the reference's int32 accumulator on every backend.  On
-TPU the 16.16 weights split into three SIGNED-BYTE digit planes and
-run as s8·s8→s32 MXU matmuls (2× the bf16 rate, exact integer
-accumulation — see ``_apply_pass_int8``); elsewhere they split into
-three byte planes whose bf16/f32 matmul operands and integer partial
-sums stay exactly representable (<= 255 in the operands, < 2^24 in
-the f32 accumulator) before the int32 recombine
-(``_apply_pass_exact_mxu``).  `exact=True` keeps the direct
-int32-einsum golden reference; ``TCFORGE_ZOOM_F32=1`` selects the
-old +/-1-LSB float path and ``TCFORGE_ZOOM_BF16=1`` the byte-split
-bf16 form (A/B benchmarking).
+BIT-EXACT to the reference's int32 accumulator on every backend: the
+16.16 weights split into three planes whose matmul operands and integer
+partial sums stay exactly representable (``_apply_pass_matmul``).
+The operand form (f32 byte planes or signed int8 digits) is chosen
+per backend in ``tcforge_tpu/backend.py``.
+`exact=True` keeps the direct int32-einsum golden reference.
 
 Filter kernels mirror ``zoom.c:150-320``: box, triangle, hermite, bell,
 b_spline, mitchell, lanczos3, cubic_keys4, sinc8.
@@ -37,6 +31,7 @@ import math
 from functools import lru_cache
 from typing import Callable, Dict, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -214,15 +209,12 @@ def _int8_digits(w_fixed: np.ndarray):
 
 def _apply_pass_int8(img: Array, w_fixed: np.ndarray, axis: int,
                      digits=None) -> Array:
-    """Bit-exact resample pass as THREE s8·s8→s32 MXU matmuls.
+    """Bit-exact resample pass as THREE s8·s8→s32 matmuls.
 
-    TPU MXUs run int8 dots at 2× the bf16 rate, and integer
-    accumulation is exact with no partial-sum bound at all (products
-    ≤ 128·128, sums stay far under 2^31).  Pixels don't fit int8, so
-    the pass computes ``Σ w·(x-128)`` and adds back the static
-    ``128·rowsum(digit)`` per output tap.  Measured 6348 vs 5586 fps
-    on the north-star 1080p shapes vs the bf16 byte-split form,
-    bit-identical."""
+    Integer accumulation is exact with no partial-sum bound at all
+    (products ≤ 128·128, sums stay far under 2^31).  Pixels don't fit
+    int8, so the pass computes ``Σ w·(x-128)`` and adds back the static
+    ``128·rowsum(digit)`` per output tap."""
     digs = digits if digits is not None else _int8_digits(w_fixed)
     src = (img.astype(jnp.int32) - 128).astype(jnp.int8)
     last = axis == -1 or axis == img.ndim - 1
@@ -243,23 +235,31 @@ def _apply_pass_int8(img: Array, w_fixed: np.ndarray, axis: int,
     return jnp.clip(acc, 0, 255).astype(jnp.uint8)
 
 
-def _apply_pass_exact_mxu(img: Array, w_fixed: np.ndarray,
-                          axis: int, op_dtype=None) -> Array:
-    """Bit-exact resample pass as THREE bf16 MXU matmuls.
+def _apply_pass_matmul(img: Array, w_fixed: np.ndarray,
+                       axis: int, form: str = None) -> Array:
+    """Bit-exact resample pass as THREE float matmuls (or, for
+    ``form="s8"``, three int8 ones: ``_apply_pass_int8``).
 
     The 16.16 weights are split into byte planes ``w = (hi<<16) +
     (mid<<8) + lo`` with ``lo, mid`` in [0, 255] and ``hi`` the
-    arithmetic high part (tiny, signed).  Every operand is then
-    exactly representable in bfloat16 (7 mantissa bits cover the
-    integers 0..255), every product is an integer < 2^24, and every
-    partial sum stays < 2^24 (checked below), so the MXU's bf16
-    multiply + f32 accumulate computes the integer sums EXACTLY and
+    arithmetic high part (tiny, signed).  Every operand is then an
+    integer in 0..255 (exact in f32 at HIGHEST precision), every product is an integer < 2^24, and every
+    partial sum stays < 2^24 (checked below), so a matmul with f32
+    accumulation computes the integer sums EXACTLY and
     order-independently.  Recombining in int32 reproduces
-    ``_apply_pass_exact`` bit for bit at native MXU speed — this is
-    both the fast AND the exact path on TPU (an int32 einsum is not
-    MXU-shaped; a plain f32 matmul rounds operands to bf16 and loses
-    the low bits the reference's int accumulator keeps).
+    ``_apply_pass_exact`` bit for bit.
+
+    ``form`` picks the operands: ``"f32"`` at HIGHEST precision (so no
+    backend rounds the operands to a narrower type) or ``"s8"``; None
+    takes the backend's choice (``backend.path("zoom")``).
     """
+    if form is None:
+        from tcforge_tpu import backend
+        form = backend.path("zoom")
+    if form == "s8":
+        digs = _int8_digits(w_fixed)
+        if digs is not None:
+            return _apply_pass_int8(img, w_fixed, axis, digits=digs)
     lo = (w_fixed & 255).astype(np.float32)
     mid = ((w_fixed >> 8) & 255).astype(np.float32)
     hi = (w_fixed >> 16).astype(np.float32)
@@ -268,72 +268,22 @@ def _apply_pass_exact_mxu(img: Array, w_fixed: np.ndarray,
     bound = max(np.abs(p).sum(axis=1).max() for p in (lo, mid, hi))
     if bound * 255 >= (1 << 24):
         return _apply_pass_exact(img, w_fixed, axis)
-    # bf16 operands hit the MXU's native rate on TPU; on CPU bf16 is
-    # emulated, and f32 sgemm keeps the identical exactness argument
-    # (operands <= 255 are exact in either type; accumulation is f32
-    # in both)
-    import os
-
-    import jax
-    on_tpu = jax.default_backend() == "tpu"
-    if (on_tpu and op_dtype is None
-            and not os.environ.get("TCFORGE_ZOOM_BF16")
-            and not os.environ.get("TCFORGE_ZOOM_PALLAS")):
-        digs = _int8_digits(w_fixed)
-        if digs is not None:
-            return _apply_pass_int8(img, w_fixed, axis, digits=digs)
-    k_dim = w_fixed.shape[1]
-    if (on_tpu and op_dtype is None and k_dim <= 4096
-            and os.environ.get("TCFORGE_ZOOM_PALLAS")):
-        # fused Pallas pass (opt-in, NEGATIVE RESULT kept for the
-        # record): three VMEM-resident accumulators and one uint8
-        # write SHOULD beat the three-matmul XLA form, but measured
-        # 1947-2008 vs 2123 fps on the north star — the vertical
-        # pass pays two moveaxis relayouts and XLA's own fusion of
-        # the recombine already avoids most of the HBM round-trip
-        from tcforge_tpu.ops.kernels import zoom_pass_pallas
-        planes = tuple(jnp.asarray(p.T.copy(), jnp.bfloat16)
-                       for p in (hi, mid, lo))
-        if axis == -1 or axis == img.ndim - 1:
-            flat = img.reshape(-1, k_dim)
-            out = zoom_pass_pallas(flat, *planes)
-            return out.reshape(img.shape[:-1] + (w_fixed.shape[0],))
-        xt = jnp.moveaxis(img, -2, -1)          # (..., W, H)
-        flat = xt.reshape(-1, k_dim)
-        out = zoom_pass_pallas(flat, *planes)
-        out = out.reshape(xt.shape[:-1] + (w_fixed.shape[0],))
-        return jnp.moveaxis(out, -1, -2)
-    op_t = op_dtype or (jnp.bfloat16 if on_tpu else jnp.float32)
-    src = img.astype(op_t)
+    prec = jax.lax.Precision.HIGHEST
+    src = img.astype(jnp.float32)
 
     def mm(plane: np.ndarray) -> Array:
-        wj = jnp.asarray(plane, dtype=op_t)
+        wj = jnp.asarray(plane, dtype=jnp.float32)
         if axis == -1 or axis == img.ndim - 1:
-            s = jnp.einsum("...w,nw->...n", src, wj,
+            s = jnp.einsum("...w,nw->...n", src, wj, precision=prec,
                            preferred_element_type=jnp.float32)
         else:
-            s = jnp.einsum("...hw,nh->...nw", src, wj,
+            s = jnp.einsum("...hw,nh->...nw", src, wj, precision=prec,
                            preferred_element_type=jnp.float32)
         return s.astype(jnp.int32)
 
     acc = (mm(hi) << 16) + (mm(mid) << 8) + mm(lo)
     acc = (acc + 32768) >> 16
     return jnp.clip(acc, 0, 255).astype(jnp.uint8)
-
-
-def _apply_pass_f32(img: Array, w_fixed: np.ndarray, axis: int) -> Array:
-    """One resample pass in float32 (MXU path): same quantized weights,
-    float accumulation, floor + clamp."""
-    wj = jnp.asarray(w_fixed.astype(np.float32) / 65536.0)
-    src = img.astype(jnp.float32)
-    if axis == -1 or axis == img.ndim - 1:
-        acc = jnp.einsum("...w,nw->...n", src, wj,
-                         preferred_element_type=jnp.float32)
-    else:
-        acc = jnp.einsum("...hw,nh->...nw", src, wj,
-                         preferred_element_type=jnp.float32)
-    out = jnp.floor(acc + 0.5)
-    return jnp.clip(out, 0, 255).astype(jnp.uint8)
 
 
 def zoom_plane(img: Array, new_w: int, new_h: int,
@@ -358,17 +308,9 @@ def zoom_plane(img: Array, new_w: int, new_h: int,
         out = out.at[..., 0::2, :].set(top)
         out = out.at[..., 1::2, :].set(bot)
         return out
-    # the byte-split matmul path is bit-exact AND MXU-shaped, so it is
-    # the default everywhere; `exact=True` keeps the int32-einsum
-    # golden reference, `TCFORGE_ZOOM_F32=1` the old float path (for
-    # A/B benchmarking only)
-    import os
-    if exact:
-        apply_pass = _apply_pass_exact
-    elif os.environ.get("TCFORGE_ZOOM_F32"):
-        apply_pass = _apply_pass_f32
-    else:
-        apply_pass = _apply_pass_exact_mxu
+    # the byte-split matmul path is bit-exact, so it is the default
+    # everywhere; `exact=True` keeps the int32-einsum golden reference
+    apply_pass = _apply_pass_exact if exact else _apply_pass_matmul
     out = img
     if new_w != w:
         out = apply_pass(out, contrib_matrix(w, new_w, filter_name), -1)

@@ -1,12 +1,12 @@
 """Multi-host distributed transcoding: jax.distributed + frame-range
-sharding over DCN (SURVEY §2.9: the reference's cluster mode had no
-communication layer at all — NFS + shell, docs/README.cluster:9-60;
-the TPU-native rebuild gets a real one).
+sharding across hosts (SURVEY §2.9: the reference's cluster mode had
+no communication layer at all — NFS + shell, docs/README.cluster:9-60;
+the rebuild gets a real one).
 
 Topology: each HOST (jax process) owns a frame-range chunk of the clip
-(data parallelism over DCN, embarrassingly parallel except the halo
+(data parallelism over the network, embarrassingly parallel except the halo
 frames temporal filters need); WITHIN a host the engine's device mesh
-shards the batch/width over ICI as usual.  Synchronisation uses XLA
+shards the batch/width over NVLink as usual.  Synchronisation uses XLA
 collectives (a psum barrier + global frame counters), not NCCL/MPI.
 
 Launch one process per host:
@@ -44,6 +44,9 @@ def run_distributed(coordinator: str, nprocs: int, proc: int,
                     extra_args: List[str], overlap: int = 8,
                     merge: bool = True) -> int:
     import jax
+
+    from tcforge_tpu import backend
+    backend.init_compile_cache()
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=nprocs,
                                process_id=proc)

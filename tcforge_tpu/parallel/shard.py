@@ -3,7 +3,7 @@
 The mesh layout is ("data", "spatial"): the batch (frame) dimension
 shards over "data" — the analogue of the reference's N identical filter
 worker threads (src/frame_threads.c) — and the frame width shards over
-"spatial" for ops with local stencils, riding ICI.  XLA inserts the halo
+"spatial" for ops with local stencils, over NVLink.  XLA inserts the halo
 exchanges and reductions from sharding constraints alone; nothing here
 speaks NCCL/MPI (the reference's cluster mode has no comm layer at all,
 README.cluster:9-60 — ours is jax.sharding).
@@ -98,7 +98,7 @@ def sharded_chain_step(mesh: Mesh, y: np.ndarray, u: np.ndarray,
                        v: np.ndarray):
     """One sharded step of a representative denoise+rescale chain:
     unsharp (stencil -> spatial halo via XLA) + zoom (matmul over the
-    sharded width -> ICI collectives) + a global quality statistic
+    sharded width -> collectives) + a global quality statistic
     (cross-device reduction).
 
     Returns ((y', u', v'), stat).  Used by the driver's multi-chip dry

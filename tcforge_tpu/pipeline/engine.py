@@ -195,8 +195,8 @@ class Pipeline:
         self._setup_modules()
         if getattr(job, "mesh_mode", "auto") != "off":
             # LOCAL devices only: each host's engine shards over its own
-            # chips (ICI); cross-host parallelism is frame-range
-            # sharding in parallel/distributed.py (DCN)
+            # cards (NVLink); cross-host parallelism is frame-range
+            # sharding in parallel/distributed.py (network)
             devs = jax.local_devices()
             if len(devs) > 1:
                 from tcforge_tpu.parallel.shard import make_mesh
@@ -794,6 +794,11 @@ class Pipeline:
                 if (self.mesh is None and self.vchain.is_identity()
                         and fb.format == self.vchain.in_format):
                     out = fb          # no-op step: skip jit dispatch
+                elif self.mesh is not None:
+                    # hand kernels read the mesh while they are traced
+                    # (ops/kernels.py wraps them in shard_map)
+                    with jax.set_mesh(self.mesh):
+                        out, vstates = self.vchain(fb, vstates)
                 else:
                     out, vstates = self.vchain(fb, vstates)
                 for filt, fstate in zip(self.vchain.filters, vstates):

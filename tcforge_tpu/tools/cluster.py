@@ -18,7 +18,62 @@ import argparse
 import os
 import subprocess
 import sys
+import time
 from typing import List, Optional
+
+
+def visible_gpus() -> List[str]:
+    """The GPUs chunk processes may use: ``CUDA_VISIBLE_DEVICES`` when
+    it is set, else every card ``nvidia-smi -L`` lists; empty on a
+    machine without one.  Read without JAX, so this process never
+    opens a card itself."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [d.strip() for d in env.split(",") if d.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [str(i) for i, line in enumerate(
+        ln for ln in out.splitlines() if ln.startswith("GPU "))]
+
+
+def run_chunks(cmds: List[List[str]], jobs: int,
+               gpus: List[str]) -> List[int]:
+    """Run the chunk commands, at most ``jobs`` at a time; with GPUs,
+    at most one process per card, each pinned to its own card through
+    ``CUDA_VISIBLE_DEVICES`` (a JAX process reserves most of a card's
+    memory, so a second one on the same card would fail).  Returns
+    the exit codes in command order."""
+    if gpus:
+        jobs = min(jobs, len(gpus))
+    free = list(gpus)
+    running = []                     # (index, Popen, gpu or None)
+    rcs = [0] * len(cmds)
+
+    def reap_one() -> None:
+        while True:
+            for k, (i, p, g) in enumerate(running):
+                if p.poll() is not None:
+                    rcs[i] = p.returncode
+                    running.pop(k)
+                    if g is not None:
+                        free.append(g)
+                    return
+            time.sleep(0.05)
+
+    for i, cmd in enumerate(cmds):
+        while len(running) >= max(1, jobs):
+            reap_one()
+        env = dict(os.environ)
+        gpu = free.pop(0) if gpus else None
+        if gpu is not None:
+            env["CUDA_VISIBLE_DEVICES"] = gpu
+        running.append((i, subprocess.Popen(cmd, env=env), gpu))
+    while running:
+        reap_one()
+    return rcs
 
 
 def run_cluster(input_path: str, output_path: str, nchunks: int,
@@ -35,9 +90,8 @@ def run_cluster(input_path: str, output_path: str, nchunks: int,
     chunks = plan_chunks(total, nchunks, overlap=overlap)
     fps = info.fps or 25.0
 
-    procs = []
     outs = []
-    jobs = jobs or nchunks
+    cmds = []
     for c in chunks:
         out = chunk_output_name(output_path, c.chunk)
         outs.append(out)
@@ -49,20 +103,14 @@ def run_cluster(input_path: str, output_path: str, nchunks: int,
         rel_start = c.start - c.read_start
         rel_end = c.end - c.read_start
         rng = f"0.{rel_start}-0.{rel_end}"
-        cmd = [sys.executable, "-m", "tcforge_tpu.cli",
-               "-i", input_path, "-o", out,
-               "-L", str(c.read_start),
-               "-c", rng, "--progress_off", "-q"] + extra_args
-        env = dict(os.environ)
-        procs.append((c, subprocess.Popen(cmd, env=env)))
-        while len([p for _, p in procs if p.poll() is None]) >= jobs:
-            for _, p in procs:
-                if p.poll() is None:
-                    p.wait()
-                    break
+        cmds.append([sys.executable, "-m", "tcforge_tpu.cli",
+                     "-i", input_path, "-o", out,
+                     "-L", str(c.read_start),
+                     "-c", rng, "--progress_off", "-q"] + extra_args)
+    rcs = run_chunks(cmds, jobs or nchunks, visible_gpus())
     rc = 0
-    for c, p in procs:
-        if p.wait() != 0:
+    for c, r in zip(chunks, rcs):
+        if r != 0:
             print(f"cluster: chunk {c.chunk} failed", file=sys.stderr)
             rc = 1
     if rc:
@@ -107,7 +155,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("-o", dest="output", required=True)
     p.add_argument("-W", dest="nchunks", type=int, required=True)
     p.add_argument("-j", dest="jobs", type=int,
-                   help="max concurrent chunk processes")
+                   help="max concurrent chunk processes (never more "
+                   "than the visible GPUs)")
     p.add_argument("--overlap", type=int, default=8,
                    help="temporal halo frames for window filters")
     args = p.parse_args(argv)

@@ -119,41 +119,6 @@ class TestHqdn3d:
         np.testing.assert_array_equal(na, np.asarray(pa))
         np.testing.assert_array_equal(n2, np.asarray(r2))
 
-    def test_denoise3d_pallas_within_1(self):
-        """Pallas (interpret-mode on CPU) denoise3d == LUT scan path
-        within ±1 LSB, carry threading included."""
-        from tcforge_tpu.modules.filters import denoise3d as d3
-        from tcforge_tpu.ops.kernels import denoise3d_plane_pallas
-        ch = d3.precalc_coefs(4.0)
-        ct = d3.precalc_coefs(6.0)
-        b1 = rand_u8(3, 16, 24)
-        prev = np.zeros((16, 24), np.int32)
-        ref, rprev = d3.denoise_plane(jnp.asarray(b1),
-                                      jnp.asarray(prev),
-                                      jnp.asarray(ch), jnp.asarray(ch),
-                                      jnp.asarray(ct))
-        got, gprev = denoise3d_plane_pallas(jnp.asarray(b1),
-                                            jnp.asarray(prev),
-                                            4.0, 6.0)
-        diff = np.abs(np.asarray(ref).astype(int)
-                      - np.asarray(got).astype(int))
-        assert diff.max() <= 1, diff.max()
-        pd = np.abs(np.asarray(rprev) - np.asarray(gprev))
-        assert pd.max() <= 1
-
-    def test_fast_matches_exact_within_1(self):
-        """Computed-coefficient mode within 1 LSB of the LUT mode."""
-        frames = rand_u8(2, 16, 24)
-        ant0 = jnp.asarray(frames[0].astype(np.int32)) << 8
-        exact, _ = hq.denoise_plane(jnp.asarray(frames), ant0,
-                                    jnp.asarray(hq.precalc_coefs(4.0)),
-                                    jnp.asarray(hq.precalc_coefs(6.0)))
-        fast, _ = hq.denoise_plane(jnp.asarray(frames), ant0,
-                                   hq.coef_fn(4.0), hq.coef_fn(6.0))
-        diff = np.abs(np.asarray(exact).astype(int)
-                      - np.asarray(fast).astype(int))
-        assert diff.max() <= 1, diff.max()
-
     def test_strength_cascade(self):
         """Parameter interdependence rules (filter_hqdn3d.c:218-260)."""
         f = hq.Hqdn3dFilter(Job(), "luma=8.0")
@@ -170,7 +135,8 @@ class TestHqdn3d:
             .astype(np.uint8)
         ant0 = jnp.asarray(noisy[0].astype(np.int32)) << 8
         out, _ = hq.denoise_plane(jnp.asarray(noisy), ant0,
-                                  hq.coef_fn(6.0), hq.coef_fn(9.0))
+                                  jnp.asarray(hq.precalc_coefs(6.0)),
+                                  jnp.asarray(hq.precalc_coefs(9.0)))
         in_var = float(np.var(noisy[-1].astype(float) - 100))
         out_var = float(np.var(np.asarray(out[-1]).astype(float) - 100))
         assert out_var < in_var * 0.5
@@ -388,153 +354,3 @@ class TestXsharpen:
         rgb = jnp.asarray(rand_u8(1, 10, 10, 3))
         out = xsharpen_rgb(rgb, 200, 255)
         assert out.shape == rgb.shape
-
-
-class TestLutCorrections:
-    """The closed-form f32 curve + lut_correction must be BIT-EXACT
-    to the f64 LUT path on this backend (the correction tuple is
-    probed against the kernel's own pow lowering, so the test holds
-    on TPU and CPU alike)."""
-
-    def test_hq_correction_makes_pallas_exact(self):
-        from tcforge_tpu.ops.kernels import (denoise_plane_pallas,
-                                             lut_correction)
-        cs, ct = lut_correction(4.0), lut_correction(6.0)
-        frames = rand_u8(3, 16, 24)
-        b2 = rand_u8(2, 16, 24)
-        ant0 = jnp.asarray(frames[0].astype(np.int32)) << 8
-        ref1, ra = hq.denoise_plane(
-            jnp.asarray(frames), ant0,
-            jnp.asarray(hq.precalc_coefs(4.0)),
-            jnp.asarray(hq.precalc_coefs(6.0)))
-        ref2, _ = hq.denoise_plane(
-            jnp.asarray(b2), ra,
-            jnp.asarray(hq.precalc_coefs(4.0)),
-            jnp.asarray(hq.precalc_coefs(6.0)))
-        got1, ga = denoise_plane_pallas(jnp.asarray(frames), ant0,
-                                        4.0, 6.0, cs, ct)
-        got2, _ = denoise_plane_pallas(jnp.asarray(b2), ga,
-                                       4.0, 6.0, cs, ct)
-        np.testing.assert_array_equal(np.asarray(got1),
-                                      np.asarray(ref1))
-        np.testing.assert_array_equal(np.asarray(ga), np.asarray(ra))
-        np.testing.assert_array_equal(np.asarray(got2),
-                                      np.asarray(ref2))
-
-    def test_hq_correction_covers_full_domain(self):
-        """Every one of the 8192 coefficient-domain values must match
-        the f64 LUT after correction (not just the values a random
-        image happens to exercise)."""
-        from tcforge_tpu.ops.kernels import (_gamma_of, lut_correction,
-                                             spatial_scan)
-        for s in (4.0, 6.0, 3.0, 4.5):
-            corr = lut_correction(s)
-            d = np.arange(8192, dtype=np.int64)
-            x = np.zeros((2, 8192), np.int32)
-            x[0] = (d << 12) - 0x10007FF
-            out = np.asarray(spatial_scan(jnp.asarray(x),
-                                          _gamma_of(s), True,
-                                          corr=corr))
-            np.testing.assert_array_equal(out[1],
-                                          hq.precalc_coefs(s),
-                                          err_msg=f"strength {s}")
-
-    def test_apply_corr_pairing_identity(self):
-        """_apply_corr folds odd-symmetric (center+j, d), (center-j, -d)
-        pairs onto |i| (halving the compare count on the scan critical
-        path).  The fold must be behavior-identical to the naive
-        one-compare-per-entry sum for EVERY tuple shape: fully paired
-        (the measured TPU case), unpaired leftovers, same-sign twins
-        (not odd — must NOT fold), and an entry at the center."""
-        from tcforge_tpu.ops.kernels import _apply_corr
-
-        def naive(coef, idx, corr):
-            adj = np.zeros_like(np.asarray(idx))
-            for k, dv in corr:
-                adj = adj + (np.asarray(idx) == k) * dv
-            return np.asarray(coef) + adj
-
-        center = 4096
-        idx = jnp.arange(8192, dtype=jnp.int32)
-        coef = jnp.zeros(8192, jnp.int32)
-        cases = [
-            # fully paired (odd symmetry)
-            ((center + 7, 1), (center - 7, -1),
-             (center + 300, -1), (center - 300, 1)),
-            # unpaired leftovers only
-            ((center + 11, 1), (center - 40, -1)),
-            # same-sign twins: NOT an odd pair, must not fold
-            ((center + 5, 1), (center - 5, 1)),
-            # center entry + mixed
-            ((center, -1), (center + 2, 1), (center - 2, -1),
-             (center + 9, 1)),
-            (),
-        ]
-        for corr in cases:
-            got = np.asarray(_apply_corr(coef, idx, corr,
-                                         center=center))
-            np.testing.assert_array_equal(got, naive(coef, idx, corr),
-                                          err_msg=str(corr))
-
-    def test_apply_corr_bitmap_path_identity(self):
-        """Large paired tuples take the 32-index-window bitmap path
-        (word-select + lane-variable shift); it must be
-        behavior-identical to the naive per-entry sum, including
-        signs, window boundaries (j&31 == 0/31), indices beyond the
-        last window, and mixed |dv|==2 leftovers on the compare
-        path."""
-        from tcforge_tpu.ops.kernels import _apply_corr
-
-        def naive(coef, idx, corr):
-            adj = np.zeros_like(np.asarray(idx))
-            for k, dv in corr:
-                adj = adj + (np.asarray(idx) == k) * dv
-            return np.asarray(coef) + adj
-
-        center = 4096
-        idx = jnp.arange(8192, dtype=jnp.int32)
-        coef = jnp.zeros(8192, jnp.int32)
-        rng = np.random.RandomState(7)
-        # 40 paired ±1 indices clustered like the measured tuples,
-        # incl. exact word-boundary bits 0 and 31
-        js = sorted(set([32, 63, 64, 95, 407] +
-                        list(rng.choice(np.arange(1, 420), 35,
-                                        replace=False))))
-        corr = []
-        for n, j in enumerate(js):
-            dv = 1 if n % 3 else -1
-            corr += [(center + j, dv), (center - j, -dv)]
-        # a |dv|==2 pair rides the compare path alongside the bitmap
-        corr += [(center + 500, 2), (center - 500, -2)]
-        got = np.asarray(_apply_corr(coef, idx, tuple(corr),
-                                     center=center))
-        np.testing.assert_array_equal(got, naive(coef, idx, corr))
-        # d3-style center=0 domain with negative indices
-        idx0 = jnp.arange(-256, 256, dtype=jnp.int32)
-        coef0 = jnp.zeros(512, jnp.int32)
-        corr0 = []
-        for n, j in enumerate(range(3, 3 + 24)):
-            dv = 1 if n % 2 else -1
-            corr0 += [(j, dv), (-j, -dv)]
-        got0 = np.asarray(_apply_corr(coef0, idx0, tuple(corr0),
-                                      center=0))
-        np.testing.assert_array_equal(got0, naive(coef0, idx0, corr0))
-
-    def test_d3_correction_makes_pallas_exact(self):
-        from tcforge_tpu.modules.filters import denoise3d as d3
-        from tcforge_tpu.ops.kernels import (denoise3d_plane_pallas,
-                                             lut_correction)
-        cs = lut_correction(4.0, mode="d3")
-        ct = lut_correction(6.0, mode="d3")
-        ch = d3.precalc_coefs(4.0)
-        ctab = d3.precalc_coefs(6.0)
-        b1 = rand_u8(3, 16, 24)
-        prev = np.zeros((16, 24), np.int32)
-        ref, ra = d3.denoise_plane(jnp.asarray(b1), jnp.asarray(prev),
-                                   jnp.asarray(ch), jnp.asarray(ch),
-                                   jnp.asarray(ctab))
-        got, ga = denoise3d_plane_pallas(jnp.asarray(b1),
-                                         jnp.asarray(prev),
-                                         4.0, 6.0, cs, ct)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-        np.testing.assert_array_equal(np.asarray(ga), np.asarray(ra))

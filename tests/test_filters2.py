@@ -770,88 +770,6 @@ class TestExtras:
             assert touched == (fid in (1, 3, 5)), fid
 
 
-class TestTomsmocompPallas:
-    def test_kernel_matches_jnp_reference(self):
-        """ops/kernels.tomsmocomp_plane_pallas (interpret mode) must be
-        bit-identical to the jnp tournament for every effort level."""
-        import jax
-        import jax.numpy as jnp
-        from tcforge_tpu.modules.filters.tomsmocomp import \
-            tomsmocomp_plane
-        from tcforge_tpu.ops.kernels import tomsmocomp_plane_pallas
-        rng = np.random.default_rng(12)
-        n, h, w = 2, 40, 136             # non-multiple of chunk/lanes
-        curr = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
-        prev = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
-        nxt = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
-        for effort in (0, 3, 5, 11, 15):
-            for parity in (0, 1):
-                ref = jax.vmap(lambda c, p, x: tomsmocomp_plane(
-                    c.astype(jnp.int32), p.astype(jnp.int32),
-                    x.astype(jnp.int32), parity, effort))(
-                    jnp.asarray(curr), jnp.asarray(prev),
-                    jnp.asarray(nxt))
-                ref = np.clip(np.asarray(ref), 0, 255).astype(np.uint8)
-                got = np.asarray(tomsmocomp_plane_pallas(
-                    jnp.asarray(curr), jnp.asarray(prev),
-                    jnp.asarray(nxt), parity, effort, interpret=True))
-                np.testing.assert_array_equal(ref, got)
-
-    def test_pipelined_kernel_matches_v1(self):
-        """tomsmocomp_plane_pallas2 (halo-tensor BlockSpec variant,
-        auto-pipelined DMAs) is bit-identical to the manual-DMA
-        kernel."""
-        import jax.numpy as jnp
-        from tcforge_tpu.ops.kernels import (tomsmocomp_plane_pallas,
-                                             tomsmocomp_plane_pallas2)
-        rng = np.random.default_rng(4)
-        for (h, w, effort, parity) in ((64, 128, 5, 0), (100, 200, 15, 1),
-                                       (37, 150, 3, 0)):
-            c, p, x = (jnp.asarray(rng.integers(0, 256, (2, h, w),
-                                                dtype=np.uint8))
-                       for _ in range(3))
-            a = tomsmocomp_plane_pallas(c, p, x, parity, effort,
-                                        interpret=True)
-            b = tomsmocomp_plane_pallas2(c, p, x, parity, effort,
-                                         interpret=True)
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-class TestUnsharpPallas:
-    def test_kernel_matches_cascade(self):
-        """ops/kernels.unsharp_plane_pallas (interpret mode) is
-        bit-identical to the u32 shift-add cascade + sharpen math,
-        including edge replication and the fixed-point rounding."""
-        import jax.numpy as jnp
-        from tcforge_tpu.modules.filters.unsharp import \
-            _binomial_blur_acc
-        from tcforge_tpu.ops.kernels import unsharp_plane_pallas
-        rng = np.random.default_rng(11)
-
-        def ref(img, mx, my, amount):
-            sx, sy = mx // 2, my // 2
-            sb = (sx + sy) * 2
-            acc = _binomial_blur_acc(img, sx, sy)
-            blur = ((acc + jnp.uint32(1 << (sb - 1))) >> sb) \
-                .astype(jnp.int32)
-            src = img.astype(jnp.int32)
-            res = src + (((src - blur)
-                          * jnp.int32(int(amount * 65536.0))) >> 16)
-            return jnp.clip(res, 0, 255).astype(jnp.uint8)
-
-        for (h, w, mx, my, am) in ((72, 130, 7, 5, 0.8),
-                                   (64, 128, 3, 3, -1.5),
-                                   (100, 257, 15, 1, 0.3),
-                                   (37, 64, 1, 15, 2.0),
-                                   (128, 200, 13, 17, 0.5)):
-            img = jnp.asarray(rng.integers(0, 256, (3, h, w),
-                                           dtype=np.uint8))
-            a = np.asarray(ref(img, mx, my, am))
-            b = np.asarray(unsharp_plane_pallas(
-                img, mx // 2, my // 2, am, interpret=True))
-            np.testing.assert_array_equal(a, b)
-
-
 class TestYuvdenoisePostprocess:
     """Round-3 option-surface depth: contrast/sharpen/increment/border
     golden-tested against independent ports of the denoise.c formulas

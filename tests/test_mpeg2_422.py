@@ -844,8 +844,8 @@ class Test422NativeEncode:
         digest = hashlib.md5(es).hexdigest()
         # native-path pin (CPU backend; the jax path differs by
         # design).  Regenerate with this test's own code if re-pinned.
-        import jax
-        if jax.default_backend() != "cpu":
+        from tcforge_tpu import backend
+        if backend.path("mpeg2_blocks") != "native":
             pytest.skip("pin is for the native CPU path")
         assert digest == PIN_422_MD5, digest
 
@@ -919,7 +919,7 @@ class Test422GopScan:
 
     def test_importer_gop_scan_422_bit_identical(self, tmp_path):
         """The production importer's 4:2:2 GOP-per-dispatch path
-        (the TPU default, forced here on CPU) must emit the same
+        (the GPU default, forced here on CPU) must emit the same
         frames as the per-picture path — including run-cap flushes
         mid-stream and the spill trim when a flush overshoots the
         requested batch."""

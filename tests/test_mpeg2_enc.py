@@ -115,7 +115,7 @@ class TestRateControl:
 
 class TestGopScanRecon:
     """GOP-per-dispatch reconstruction (reconstruct_gop_jax, the
-    TPU-resident decode path): one lax.scan program over a decode-
+    device-resident decode path): one lax.scan program over a decode-
     order picture sequence must be bit-identical to the streaming
     per-picture reconstruction (iter_decode_full), display
     reordering, anchor carry and EOS flush included."""
@@ -256,7 +256,7 @@ class TestGopScanRecon:
                                           np.asarray(pb))
 
     def test_shift_mc_bit_identical_to_gather(self):
-        """The gather-free static-shift MC (the TPU fast path) must
+        """The gather-free static-shift MC must
         reproduce the per-pixel-gather reconstruction bit for bit
         (edge clamps included — frames with motion at the borders)."""
         from tcforge_tpu import native
@@ -283,7 +283,7 @@ class TestGopScanRecon:
 
 
 class TestEncoderShiftMC:
-    """The encoder's TPU MC path (shift-select via
+    """The encoder's shift-select MC path (via
     io/mpeg2codec.shift_sel_mc) must emit bit-identical math to the
     gather path — levels, mbinfo, recon, vectors."""
 
@@ -388,7 +388,7 @@ class TestEncoderShiftMC:
 
 
 class TestVectorizedME:
-    """The TPU ME formulations (_exhaustive_search_vec, _refine25_vec,
+    """The vectorized ME formulations (_exhaustive_search_vec, _refine25_vec,
     _halfpel9_vec — stacked-slice sweeps + the shared-mask offset
     grid) must match the loop formulations bit for bit: vectors,
     SADs, clip and tie-break semantics, including motion clamped at
@@ -451,7 +451,7 @@ class TestVectorizedME:
 
 
 class TestSlabLayoutBlocks:
-    """The coefficient-major ('slab') block pipeline — the TPU
+    """The coefficient-major ('slab') block pipeline — the device
     formulation that folds the pixel->block relayout into the DCT
     matmuls.  Integer stages must equal the block-layout originals
     EXACTLY for identical coefficient inputs; the DCT differs only by

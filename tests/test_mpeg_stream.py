@@ -161,7 +161,7 @@ class TestStreamingPS:
 
 class TestGopScanImporter:
     def test_gop_scan_path_bit_identical(self, tmp_path):
-        """The importer's GOP-per-dispatch decode (the TPU default,
+        """The importer's GOP-per-dispatch decode (the GPU default,
         forced here on CPU) must emit the same frames as the
         per-picture path."""
         from tcforge_tpu.core.job import Job

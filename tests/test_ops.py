@@ -3,7 +3,7 @@
 Follows the reference's testsuite pattern (test-imgconvert.c:142-152,
 test-average.c): every op is compared against a straight numpy
 re-implementation of the C formulas, with exact equality for the integer
-paths and a +/-1 LSB budget for the float32 MXU paths.
+paths and a +/-1 LSB budget for the float32 paths.
 """
 
 import numpy as np
@@ -222,7 +222,7 @@ class TestZoom:
 
     def test_default_path_is_bit_exact(self):
         """The default (byte-split matmul) path must equal the int32
-        reference bit for bit — it IS the TPU path, in bf16 there."""
+        reference bit for bit on every backend's operand form."""
         img = rand_u8(3, 48, 64)
         for filt in ("lanczos3", "box", "triangle", "mitchell",
                      "sinc8", "b_spline"):
@@ -234,25 +234,25 @@ class TestZoom:
                 np.testing.assert_array_equal(
                     got, want, err_msg=f"{filt} {tw}x{th}")
 
-    def test_byte_split_bit_exact_in_bf16(self):
-        """The bf16 operand variant (what the TPU MXU runs) must also
-        be exact: byte-plane operands <= 255 are bf16-representable and
-        partial sums stay < 2^24 in the f32 accumulator."""
+    def test_byte_split_bit_exact_in_f32(self):
+        """The f32 operand form, named explicitly, is exact: byte-plane
+        operands <= 255 at HIGHEST precision, partial sums < 2^24 in
+        the f32 accumulator."""
         img = jnp.asarray(rand_u8(2, 40, 56))
         for filt in ("lanczos3", "triangle", "mitchell"):
             w_fix = zoom.contrib_matrix(56, 33, filt)
             want = np.asarray(zoom._apply_pass_exact(img, w_fix, -1))
-            got = np.asarray(zoom._apply_pass_exact_mxu(
-                img, w_fix, -1, op_dtype=jnp.bfloat16))
+            got = np.asarray(zoom._apply_pass_matmul(
+                img, w_fix, -1, form="f32"))
             np.testing.assert_array_equal(got, want, err_msg=filt)
             w_fy = zoom.contrib_matrix(40, 21, filt)
             want = np.asarray(zoom._apply_pass_exact(img, w_fy, -2))
-            got = np.asarray(zoom._apply_pass_exact_mxu(
-                img, w_fy, -2, op_dtype=jnp.bfloat16))
+            got = np.asarray(zoom._apply_pass_matmul(
+                img, w_fy, -2, form="f32"))
             np.testing.assert_array_equal(got, want, err_msg=filt)
 
     def test_int8_digit_split_bit_exact(self):
-        """The s8·s8→s32 variant (the TPU default) must reproduce the
+        """The s8·s8→s32 variant (int8 tensor cores) must reproduce the
         int32 reference: signed base-256 digits recombine exactly and
         the 128-shift makes pixels int8-representable with a static
         rowsum add-back."""
@@ -270,14 +270,17 @@ class TestZoom:
             got = np.asarray(zoom._apply_pass_int8(img, w_fy, -2))
             np.testing.assert_array_equal(got, want, err_msg=filt)
 
-    def test_f32_within_1lsb(self, monkeypatch):
-        monkeypatch.setenv("TCFORGE_ZOOM_F32", "1")
-        img = rand_u8(1, 48, 64)
-        exact = np.asarray(zoom.zoom_plane(jnp.asarray(img), 32, 24,
-                                           "lanczos3", exact=True))
-        fast = np.asarray(zoom.zoom_plane(jnp.asarray(img), 32, 24,
-                                          "lanczos3", exact=False))
-        assert np.abs(exact.astype(int) - fast.astype(int)).max() <= 1
+    def test_f32_within_1lsb(self):
+        """The f32 byte-plane form at HIGHEST precision (the CPU
+        default) is within 1 LSB of the int32 reference — in fact
+        exact, operands and partial sums being f32-representable."""
+        img = jnp.asarray(rand_u8(1, 48, 64))
+        for w_fix, axis in ((zoom.contrib_matrix(64, 32, "lanczos3"), -1),
+                            (zoom.contrib_matrix(48, 24, "lanczos3"), -2)):
+            exact = np.asarray(zoom._apply_pass_exact(img, w_fix, axis))
+            fast = np.asarray(zoom._apply_pass_matmul(img, w_fix, axis,
+                                                         form="f32"))
+            np.testing.assert_array_equal(fast, exact)
 
     def test_upscale(self):
         img = rand_u8(1, 16, 16)
@@ -472,24 +475,3 @@ class TestAudio:
         assert out.shape == (1, 50, 1)
         np.testing.assert_array_equal(np.asarray(out)[0, :, 0],
                                       pcm[0, 0::2, 0])
-
-    def test_fused_pallas_pass_bit_exact(self):
-        """The fused zoom Pallas kernel (TPU path) must equal the
-        int32 reference — interpret mode on CPU, bf16 operands as on
-        the MXU."""
-        from tcforge_tpu.ops.kernels import zoom_pass_pallas
-        img = rand_u8(2, 40, 333)
-        for filt in ("lanczos3", "mitchell"):
-            wf = zoom.contrib_matrix(333, 150, filt)
-            want = np.asarray(zoom._apply_pass_exact(
-                jnp.asarray(img), wf, -1))
-            hi = jnp.asarray((wf >> 16).T.astype(np.float32),
-                             jnp.bfloat16)
-            mid = jnp.asarray(((wf >> 8) & 255).T.astype(np.float32),
-                              jnp.bfloat16)
-            lo = jnp.asarray((wf & 255).T.astype(np.float32),
-                             jnp.bfloat16)
-            got = np.asarray(zoom_pass_pallas(
-                jnp.asarray(img).reshape(-1, 333), hi, mid, lo,
-                interpret=True)).reshape(2, 40, 150)
-            np.testing.assert_array_equal(got, want, err_msg=filt)
